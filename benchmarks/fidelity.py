@@ -1,6 +1,6 @@
 """Fidelity benchmark: raw vs FT-encoded program under circuit-level noise.
 
-The TPU-native replacement for the reference's fidelity harness, which runs
+The device-native replacement for the reference's fidelity harness, which runs
 100,000 noisy-QVM shots of a raw X-gate program against 20 Steane-encoded
 shots and prints counts and wall time without recording anything
 (reference: test/test_fidelity.py:38-46). Here both pipelines run batched

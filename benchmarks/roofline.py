@@ -1,29 +1,24 @@
-"""Roofline accounting for the three hottest device kernels.
+"""Roofline accounting for the hottest device kernels.
 
 For each kernel, measure wall time at a production shape, compute the
 ALGORITHMIC work (flops / bytes the algorithm requires, not what XLA
 happens to materialize), and report achieved rates as a fraction of the
-v5e ceilings. Peaks used (public v5e numbers):
+device's published peaks (`PEAKS`, keyed by ``device_kind``; an unknown
+device is an error). The pinned float32 contractions run at
+``Precision.HIGHEST`` (no TF32), so their compute roof is the float32
+rate outside the tensor cores.
 
-    MXU bf16            197  Tflop/s
-    MXU f32 (3-pass)     ~49 Tflop/s   (bf16/4; conservative)
-    HBM bandwidth        819  GB/s
-
-A kernel near the HBM line is bandwidth-bound (more flops are free); a
+A kernel near the memory line is bandwidth-bound (more flops are free); a
 kernel near neither line is latency/occupancy-bound — the honest
 classification for small-tensor fixpoint loops.
 
 Kernels:
   bp_totals   — BP min-sum variable-totals matmul [B, r*Dc] @ [r*Dc, n]
-                (the per-iteration MXU workhorse of decode/bp.py)
+                (the per-iteration workhorse of decode/bp.py)
   osd0_device — blocked delayed-update GF(2) elimination
                 (bp._osd0_device_kernel), bb144-circuit shape
   sparse_fetch— sparse-UF APSP fetch (the two one-hot contractions of
                 decode/device_sparse.py) at the d=11 R=11 shape
-  uf_mosaic   — the full-decode Mosaic UF kernel (VMEM-resident state;
-                HBM traffic is only detectors in / labels out, so the
-                HBM fraction REPORTED is the streaming floor and the
-                kernel is classified compute/latency-bound)
 
 Prints one JSON line per kernel.
 """
@@ -41,9 +36,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-PEAK_BF16 = 197e12
-PEAK_F32 = 49e12
-PEAK_HBM = 819e9
+#: Published dense peaks per device kind (NVIDIA H100 data sheet, SXM5
+#: part, without sparsity; rates assume the 700 W power limit).
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "bf16": 989e12, "tf32": 495e12, "f32": 67e12, "hbm": 3.35e12,
+    },
+}
+
+
+def peaks(device=None) -> dict:
+    """The `PEAKS` row of ``device`` (default: the first JAX device)."""
+    kind = (device or jax.devices()[0]).device_kind
+    if kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {kind!r}")
+    return PEAKS[kind]
 
 
 def fence(x):
@@ -71,17 +78,19 @@ def bp_totals():
     m = jnp.zeros((B, r * dc), jnp.float32)
     scat = dec._scat
 
-    f = jax.jit(lambda m: (m @ scat).sum())
+    f = jax.jit(lambda m: jnp.matmul(
+        m, scat, precision=jax.lax.Precision.HIGHEST).sum())
     dt = bench(lambda: f(m))
+    pk = peaks()
     flops = 2.0 * B * r * dc * n
     byts = 4.0 * (B * r * dc + r * dc * n + B * n)
     return {"kernel": "bp_totals", "shape": f"[{B},{r*dc}]x[{r*dc},{n}]",
             "ms": round(dt * 1e3, 2),
             "tflops": round(flops / dt / 1e12, 2),
-            "frac_f32_peak": round(flops / dt / PEAK_F32, 3),
+            "frac_f32_peak": round(flops / dt / pk["f32"], 3),
             "gbps": round(byts / dt / 1e9, 1),
-            "frac_hbm": round(byts / dt / PEAK_HBM, 3),
-            "bound": "compute" if flops / byts > PEAK_F32 / PEAK_HBM
+            "frac_hbm": round(byts / dt / pk["hbm"], 3),
+            "bound": "compute" if flops / byts > pk["f32"] / pk["hbm"]
             else "bandwidth"}
 
 
@@ -113,7 +122,7 @@ def osd0_device():
     return {"kernel": "osd0_device", "shape": f"B={B} r={r} C={C}",
             "ms": round(dt * 1e3, 2),
             "gbps": round(byts / dt / 1e9, 1),
-            "frac_hbm": round(byts / dt / PEAK_HBM, 3),
+            "frac_hbm": round(byts / dt / peaks()["hbm"], 3),
             "bound": "bandwidth (blocked delayed-update traffic)"}
 
 
@@ -138,64 +147,36 @@ def sparse_fetch():
     oh = jnp.asarray((rng.random((B, D, V)) < (20.0 / V / D)),
                      jnp.float32)
 
+    hi = jax.lax.Precision.HIGHEST
+
     def go(oh):
         rows = jax.lax.dot_general(oh.reshape(B * D, V), dist,
-                                   (((1,), (0,)), ((), ())),
+                                   (((1,), (0,)), ((), ())), precision=hi,
                                    preferred_element_type=jnp.float32)
         dm = jnp.einsum("bdv,bev->bde", rows.reshape(B, D, V), oh,
-                        preferred_element_type=jnp.float32)
+                        precision=hi, preferred_element_type=jnp.float32)
         return dm.sum()
 
     f = jax.jit(go)
     dt = bench(lambda: f(oh), reps=4)
+    pk = peaks()
     flops = 2.0 * B * D * V * V + 2.0 * B * D * D * V
     byts = 4.0 * (2 * B * D * V + V * V + B * D * D)
     return {"kernel": "sparse_fetch", "shape": f"B={B} D={D} V={V}",
             "ms": round(dt * 1e3, 2),
             "tflops": round(flops / dt / 1e12, 2),
-            "frac_f32_peak": round(flops / dt / PEAK_F32, 3),
+            "frac_f32_peak": round(flops / dt / pk["f32"], 3),
             "gbps": round(byts / dt / 1e9, 1),
-            "frac_hbm": round(byts / dt / PEAK_HBM, 3),
-            "bound": "compute" if flops / byts > PEAK_F32 / PEAK_HBM
+            "frac_hbm": round(byts / dt / pk["hbm"], 3),
+            "bound": "compute" if flops / byts > pk["f32"] / pk["hbm"]
             else "bandwidth"}
 
 
-def uf_mosaic():
-    from qcss_tpu.codes.families import rotated_surface
-    from qcss_tpu.decode.device_uf import DeviceUFDecoder
-    from qcss_tpu.decode.uf import spacetime_graph
-
-    code = rotated_surface(11)
-    g = spacetime_graph(np.asarray(code.raw_parity_check_c2),
-                        code.z_operator_matrix(), 11)
-    B = 4096
-    rng = np.random.default_rng(0)
-    dets = (rng.random((B, g.num_nodes)) < 0.008).astype(np.uint8)
-    dec = DeviceUFDecoder(g)
-
-    def go():
-        _, obs = dec.decode_batch(dets)
-        return obs
-
-    dt = bench(go, reps=3)
-    # HBM floor: detectors in + labels out
-    byts = B * g.num_nodes * 1.0 + B * 4.0
-    return {"kernel": "uf_mosaic_full", "shape": f"B={B} V={g.num_nodes}",
-            "ms": round(dt * 1e3, 2),
-            "shots_per_sec": round(B / dt),
-            "hbm_floor_gbps": round(byts / dt / 1e9, 2),
-            "bound": "compute/latency (state VMEM-resident; HBM floor "
-                     "is negligible — the loop is VPU-iteration bound)"}
-
-
 def main():
-    for fn in (bp_totals, sparse_fetch, osd0_device, uf_mosaic):
-        try:
-            print(json.dumps(fn()), flush=True)
-        except Exception as e:  # pragma: no cover
-            print(json.dumps({"kernel": fn.__name__,
-                              "error": f"{type(e).__name__}: {e}"}),
-                  flush=True)
+    dev = jax.devices()[0]
+    for fn in (bp_totals, sparse_fetch, osd0_device):
+        print(json.dumps({"device_kind": dev.device_kind, **fn()}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -8,8 +8,8 @@ with O(window) state — and prints one JSON line per distance:
 
 Wall time includes the window-step compiles; long horizons amortize them
 (the honest serving number), short ones expose them — both are reported
-via the wall_s field. TPU discipline: stream_memory_rate host-fences its
-convergence check internally each final step.
+via the wall_s field. stream_memory_rate reads its convergence flag on
+the host after the final window, which ends each timed run.
 """
 
 import argparse

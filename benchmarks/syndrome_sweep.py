@@ -2,13 +2,10 @@
 (BASELINE config 4).
 
 For rotated surface codes d=3..11, measures samples/sec of X-sector
-syndrome extraction over a large Monte-Carlo batch for three kernel forms:
+syndrome extraction over a large Monte-Carlo batch for two kernel forms:
 
-* dense-MXU: int8 matmul on the systolic array (`gf2_jax.syndromes_dense`)
-* packed-XLA: uint32 AND + XOR-parity fold on the VPU (`syndromes_packed`)
-* packed-Pallas: the lane-oriented packed-in/packed-out kernel
-  (`pallas_gf2.syndromes_packed_pallas_t`; 4W+4*ceil(R/32) bytes/sample of
-  HBM traffic — the speed-of-light form)
+* dense: int8 matmul with int32 accumulation (`gf2_jax.syndromes_dense`)
+* packed: uint32 AND + XOR-parity fold (`gf2_jax.syndromes_packed`)
 
 Prints one JSON line per (distance, kernel).
 """
@@ -27,25 +24,24 @@ import jax.numpy as jnp
 import numpy as np
 
 from qcss_tpu.codes import families
-from qcss_tpu.ops import gf2_jax, pallas_gf2
+from qcss_tpu.ops import gf2_jax
 
 
-def bench(fn, e, h, fold=None, iters=30):
+def bench(fn, e, h, iters=30):
     """Steady-state seconds per application: `iters` data-dependent chained
     applications inside ONE jitted scan, so host dispatch and output
     transfer amortize away and XLA cannot CSE the repeats. `fold(carry, s)`
     mixes the syndrome back into the carry per sample — elementwise only,
     so no cross-sample reduction serializes iterations on latency."""
 
-    if fold is None:
-        def fold(carry, s):  # carry [B, cols], s [B, R]
-            cols = carry.shape[-1]
-            r = s.shape[-1]
-            if r >= cols:
-                bump = s[:, :cols]
-            else:
-                bump = jnp.pad(s, ((0, 0), (0, cols - r)))
-            return carry ^ bump.astype(carry.dtype)
+    def fold(carry, s):  # carry [B, cols], s [B, R]
+        cols = carry.shape[-1]
+        r = s.shape[-1]
+        if r >= cols:
+            bump = s[:, :cols]
+        else:
+            bump = jnp.pad(s, ((0, 0), (0, cols - r)))
+        return carry ^ bump.astype(carry.dtype)
 
     @jax.jit
     def chained(e):
@@ -79,17 +75,10 @@ def main():
         h_dev = jnp.asarray(h)
         ep = gf2_jax.pack_bits(errors)
         hp = gf2_jax.pack_bits(h)
-        ep_t = jnp.asarray(np.ascontiguousarray(np.asarray(ep).T))
 
         results = {
-            "dense_mxu": bench(dense, e_dev, h_dev),
-            "packed_xla": bench(packed, ep, hp),
-            "packed_pallas": bench(
-                pallas_gf2.syndromes_packed_pallas_t, ep_t, hp,
-                # carry [W, B], s [WR, B]: fold the first packed syndrome
-                # word into every error word, elementwise across lanes.
-                fold=lambda carry, s: carry ^ s[0:1, :],
-            ),
+            "dense": bench(dense, e_dev, h_dev),
+            "packed": bench(packed, ep, hp),
         }
         for kernel, secs in results.items():
             print(json.dumps({

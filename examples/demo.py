@@ -1,4 +1,4 @@
-"""End-to-end tour of qcss_tpu (runs on CPU or TPU in ~a minute).
+"""End-to-end tour of qcss_tpu (runs on the CPU or a GPU in ~a minute).
 
     python examples/demo.py
 """

@@ -1,12 +1,12 @@
-"""qcss_tpu — a TPU-native framework for fault-tolerant quantum computation
-with CSS quantum error-correcting codes.
+"""qcss_tpu — an accelerator-native framework for fault-tolerant quantum
+computation with CSS quantum error-correcting codes.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
+Built from scratch in JAX/XLA with the capabilities of the reference
 library ``jimpo/quantum-css-codes`` (pure-Python pyQuil + Forest QVM), but
 re-designed device-first:
 
 * GF(2) linear algebra runs both as exact host kernels (code construction)
-  and as batched / bit-packed XLA+Pallas device kernels (the hot path).
+  and as batched / bit-packed XLA device kernels (the hot path).
 * The external Forest QVM process is replaced by an in-process, batched
   CHP stabilizer-tableau simulator (`qcss_tpu.sim`).
 * The reference's emitted Quil classical-decode instruction streams
@@ -27,19 +27,16 @@ import jax as _jax
 # Persistent XLA compilation cache: heavy compiles (FT executors 20-60 s,
 # streaming pipelines 2-8 min, the device-OSD kernel ~36 s) are paid once
 # per (program, topology) across ALL processes instead of per process.
-# Best-effort by design — a cache miss or deserialization failure falls
-# back to a normal compile. Opt out with QCSS_NO_COMPILE_CACHE=1 or point
-# elsewhere with JAX_COMPILATION_CACHE_DIR.
+# A cache miss or deserialization failure falls back to a normal compile.
+# The cache lives where JAX_COMPILATION_CACHE_DIR says, else at the fixed
+# path <repo>/.xla_cache (the path is part of the cache key, so it must
+# not move between runs). Opt out with QCSS_NO_COMPILE_CACHE=1.
 if not _os.environ.get("QCSS_NO_COMPILE_CACHE"):
-    _cache_dir = _os.environ.get(
+    _jax.config.update("jax_compilation_cache_dir", _os.environ.get(
         "JAX_COMPILATION_CACHE_DIR",
         _os.path.join(_os.path.dirname(_os.path.dirname(
-            _os.path.abspath(__file__))), ".xla_cache"))
-    try:
-        _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:  # older jax without the flags — run uncached
-        pass
+            _os.path.abspath(__file__))), ".xla_cache")))
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
 
 from qcss_tpu.errors import (
     InvalidCodeError,

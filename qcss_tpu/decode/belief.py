@@ -67,7 +67,7 @@ def _shot_weights_kernel(log1mp, edge_vars, scale):
 
     log(1 - q_e) = sum over the edge's variable slots of log(1 - p_v) —
     static gathers accumulated slot-by-slot so the [B, E, Dv] tensor is
-    never materialized (the TPU rule from decode/device_uf.py)."""
+    never materialized."""
     B = log1mp.shape[0]
     E, Dv = edge_vars.shape
 

@@ -1,13 +1,11 @@
-"""Sparse-defect union-find decoding on TPU: defect-granular ball growth.
+"""Sparse-defect union-find decoding on device: defect-granular ball growth.
 
-The Mosaic full-decode kernel (`device_uf_pallas.make_full_kernel`) does
-O(V) work per tile per fixpoint iteration regardless of how many
-detectors actually fired — the right trade at dense load (p ~ 0.008),
-but at OPERATING noise (a d=11 R=11 DEM shot carries ~15 defects out of
-721 detectors) it loses to a single host CPU core running a
-frontier-list union-find (BASELINE.md: 18.6k fused shots/s device vs
-88.8k host). This module is the sparse-aware device path: decode at
-DEFECT granularity, so per-shot work scales with (defects)^2, not V.
+The dense device kernels (`device_uf`) do O(V) work per shot per
+fixpoint iteration regardless of how many detectors actually fired —
+the right trade at dense load (p ~ 0.008), but at OPERATING noise a
+d=11 R=11 DEM shot carries ~15 defects out of 720 detectors. This module
+is the sparse-aware device path: decode at DEFECT granularity, so
+per-shot work scales with (defects)^2, not V.
 
 The classical ball-growth formulation of weighted union-find: each
 defect i carries a growth radius r_i (the sum of the growth deltas its
@@ -20,30 +18,20 @@ cluster's claimed region is the union of its defects' balls, because
 every defect of an active cluster receives the same growth delta), at
 [B, D, D] cost instead of [B, V].
 
-TPU mapping (each stage picked for the hardware, v5e-measured):
+Stages:
 
 * compaction: exclusive-prefix cumsum rank over the defect vector — no
-  scatters, no sort (lax.top_k gives the same slot order but cost 26 ms
-  of a 78 ms d=11 decode by itself);
+  scatters, no sort (same slot order lax.top_k gives on a 0/1 vector);
 * distance fetch: the [V, V] APSP table is contracted against a one-hot
-  [B, D, V] defect encoding with TWO MXU matmuls (f32: distances are
-  integers < 2^21, exact) — a flat dynamic gather of B*D^2 elements
-  costs ~10x more on v5e (the CLAUDE.md gather rule), and an int8
-  three-plane split of the table measured no faster than f32;
+  [B, D, V] defect encoding with two float32 matmuls pinned to
+  ``Precision.HIGHEST`` — distances are integers below ``UNREACH`` =
+  2^21, exact in float32 but NOT in the TF32 a GPU may otherwise use
+  for float32 products (exact only up to 2^11);
 * cluster evolution: delta-stepped event loop on [B, D] radii and a
   [B, D, D] saturation adjacency; connectivity by min-label propagation
   with WARM-STARTED labels (merging only adds edges, so the previous
   round's fixpoint is a valid seed) — a bounded while_loop, no
-  union-find pointers, no scatters. The fetch cost is near-FLAT in B up
-  to ~32k shots (latency-bound, not bandwidth-bound), so big batches are
-  nearly free: fused d=11 R=11 sample+decode measured 60k shots/s at
-  B=4096 but 119k at B=16384 and 129k at B=32768 — past the 88.8k
-  single-host-core anchor the dense kernel loses to (BASELINE.md);
-* `backend='pallas'` moves the growth loop into one Mosaic kernel with
-  per-tile VMEM state (`make_growth_kernel`, bit-identical by shared
-  `_growth_core` trace). Measured SLOWER than the XLA fixpoint at d=11
-  (per-tile sequential grids underuse the VPU; the loop is only ~15 ms
-  of the decode) — shipped opt-in, default 'auto' picks XLA;
+  union-find pointers, no scatters;
 * observables: a potential decomposition of the edge observable labels.
   For a planar matchable graph every cycle of internal edges has even
   observable crossing, so there is phi: V -> lane mask with
@@ -58,9 +46,9 @@ Contract: `make_sparse_obs_decoder(graph)` returns
 surface as `device_uf.make_obs_decoder`; shots with more than ``d_max``
 defects (or a stuck component: odd parity, no boundary, nothing to merge
 with) report converged=False. `make_hybrid_obs_decoder` composes it with
-the dense Mosaic kernel: sparse always runs; the dense kernel runs only
-when some shot overflowed, via `lax.cond`, and its result is selected
-for exactly those shots.
+the dense `device_uf` kernel: sparse always runs; the dense kernel runs
+only when some shot overflowed, via `lax.cond`, and its result is
+selected for exactly those shots.
 
 Reference anchor: completes the decode-inside-the-program inversion of
 css_code.py:649-685 *economically* — the syndrome→correction map runs
@@ -80,7 +68,8 @@ from qcss_tpu.decode.uf import MatchingGraph
 
 #: distances at or above this are "unreachable" (distinct components);
 #: all real distances must stay below to remain f32-exact after the
-#: one-hot matmul fetch (integers < 2^24 are exact in f32).
+#: one-hot matmul fetch (integers < 2^24 are exact in f32 — the fetch
+#: pins HIGHEST precision so no TF32 rounding applies).
 UNREACH = 1 << 21
 
 
@@ -188,11 +177,12 @@ def build_sparse_tables(graph: MatchingGraph) -> SparseTables | None:
     )
 
 
-def _sparse_decode(tables_dev, d_max, max_events, backend, tile, detectors):
-    """The jittable defect-granular decode (see module docstring).
-    ``backend``: 'xla' | 'pallas' | 'pallas-interpret' — the growth loop
-    either inline (XLA fixpoint over HBM-resident state) or as one
-    Mosaic kernel with VMEM-resident per-tile state."""
+def _fetch_geometry(tables_dev, d_max, detectors):
+    """Compact each shot's fired detectors into ``d_max`` slots and fetch
+    their geometry: (dm [B,D,D] pairwise distances, bdm / phim / bsm
+    [B,D] boundary distance, observable and boundary-side potentials,
+    valid [B,D], overflow [B]). Invalid slots are infinitely far and
+    never touch the boundary."""
     dist_t, phi_t, bdist_t, bside_t = tables_dev
     dets = jnp.asarray(detectors)
     B, V = dets.shape
@@ -205,20 +195,22 @@ def _sparse_decode(tables_dev, d_max, max_events, backend, tile, detectors):
 
     # -- compact the (up to D) fired detectors to slots by exclusive
     # prefix rank — same ascending-index slot order lax.top_k gives on a
-    # 0/1 vector, at a fraction of the cost (top_k alone measured 26 ms
-    # of a 78 ms d=11 decode on v5e; the cumsum is noise)
+    # 0/1 vector, without a sort
     rank = jnp.cumsum(defect, axis=1) - defect         # [B, V]
     slot = jnp.where(defect > 0, rank, D)
     valid = jnp.arange(D, dtype=jnp.int32)[None, :] < count[:, None]
 
-    # -- fetch geometry: one-hot MXU contraction against the APSP table
+    # -- one-hot contraction against the APSP table. HIGHEST keeps the
+    # float32 products exact (values up to 2^21; TF32 would round
+    # anything above 2^11)
+    hi = jax.lax.Precision.HIGHEST
     oh = (slot[:, None, :] ==
           jnp.arange(D, dtype=jnp.int32)[None, :, None]).astype(jnp.float32)
     rows = jax.lax.dot_general(
         oh.reshape(B * D, V), dist_t.astype(jnp.float32),
-        (((1,), (0,)), ((), ())),
+        (((1,), (0,)), ((), ())), precision=hi,
         preferred_element_type=jnp.float32).reshape(B, D, V)
-    dm = jnp.einsum("bdv,bev->bde", rows, oh,
+    dm = jnp.einsum("bdv,bev->bde", rows, oh, precision=hi,
                     preferred_element_type=jnp.float32)
     dm = dm.astype(jnp.int32)                         # [B, D, D] exact
     small = jnp.stack([bdist_t.astype(jnp.float32),
@@ -226,73 +218,34 @@ def _sparse_decode(tables_dev, d_max, max_events, backend, tile, detectors):
                        bside_t.astype(jnp.float32)], axis=1)  # [V, 3]
     got = jax.lax.dot_general(
         oh.reshape(B * D, V), small, (((1,), (0,)), ((), ())),
+        precision=hi,
         preferred_element_type=jnp.float32).reshape(B, D, 3)
     bdm = got[:, :, 0].astype(jnp.int32)
     phim = got[:, :, 1].astype(jnp.int32)
     bsm = got[:, :, 2].astype(jnp.int32)
-    # invalid slots: infinitely far, no boundary
     inval_row = ~valid[:, :, None] | ~valid[:, None, :]
     eye = jnp.eye(D, dtype=bool)[None]
     dm = jnp.where(inval_row | eye, BIG, dm)
     bdm = jnp.where(valid, bdm, BIG)
+    return dm, bdm, phim, bsm, valid, overflow
 
-    if backend == "xla":
-        obs, unfinished = _growth_core(dm, bdm, phim, bsm, valid,
-                                       max_events=max_events,
-                                       xor_reduce=_xor_reduce_lax)
-    else:
-        grow = make_growth_kernel(D, max_events, tile=tile,
-                                  interpret=(backend == "pallas-interpret"))
-        pad = (-B) % tile
-        if pad:
-            z2 = lambda a: jnp.pad(a, ((0, pad), (0, 0)))
-            dm = jnp.pad(dm, ((0, pad), (0, 0), (0, 0)))
-            bdm, phim, bsm = z2(bdm), z2(phim), z2(bsm)
-            vpad = z2(valid.astype(jnp.int32))
-        else:
-            vpad = valid.astype(jnp.int32)
-        obs, unfinished = grow(dm, bdm, phim, bsm, vpad)
-        obs, unfinished = obs[:B], unfinished[:B]
+
+def _sparse_decode(tables_dev, d_max, max_events, detectors):
+    """The jittable defect-granular decode (see module docstring)."""
+    dm, bdm, phim, bsm, valid, overflow = _fetch_geometry(
+        tables_dev, d_max, detectors)
+    obs, unfinished = _growth_core(dm, bdm, phim, bsm, valid,
+                                   max_events=max_events)
     converged = ~overflow & ~unfinished
     return obs, converged
 
 
-def _xor_reduce_lax(terms):
-    """[N, D] int32 -> [N] lane XOR (XLA path)."""
-    return jax.lax.reduce(terms, jnp.int32(0), jax.lax.bitwise_xor, (1,))
-
-
-def _xor_reduce_roll(terms):
-    """[N, D] int32 -> [N] lane XOR by a circular fold (Mosaic path —
-    lax.reduce with a custom combiner does not lower; after log2(D)
-    doubling rolls every lane holds the full XOR). Requires D a power
-    of two (the kernel builder pads d_max up)."""
-    import math
-
-    D = terms.shape[1]
-    x = terms
-    for k in range(int(math.log2(D))):
-        from jax.experimental.pallas import tpu as pltpu
-
-        x = x ^ pltpu.roll(x, 1 << k, 1)
-    return jnp.max(x, axis=1)  # all lanes equal now
-
-
-def _growth_core(dm, bdm, phim, bsm, valid, *, max_events, xor_reduce):
+def _growth_core(dm, bdm, phim, bsm, valid, *, max_events):
     """Delta-stepped ball growth + observable extraction on pre-fetched
-    defect geometry. Shared VERBATIM by the XLA path and the Mosaic
-    kernel (`make_growth_kernel`) so the two are bit-identical by
-    construction — every op here must lower under Mosaic (computed
-    iotas only, no captured constants, reductions decomposed per axis).
+    defect geometry.
 
     dm [N,D,D] / bdm,phim,bsm [N,D] int32, valid [N,D] bool.
-    Returns (obs [N] int32, unfinished [N] bool).
-
-    Mosaic discipline (learned on sim/pallas_measure and re-hit here):
-    NEVER reshape or dim-insert a bool plane — `b[:, :, None]` on an i1
-    vector emits a sub-32-bit minor-dim reshape Mosaic rejects. All
-    broadcast/reshaped operands below are int32; bools appear only as
-    final-rank comparison results feeding jnp.where."""
+    Returns (obs [N] int32, unfinished [N] bool)."""
     N, D = bdm.shape
     BIG = jnp.int32(UNREACH)
     iota = jax.lax.broadcasted_iota(jnp.int32, (N, D), 1)
@@ -343,8 +296,7 @@ def _growth_core(dm, bdm, phim, bsm, valid, *, max_events, xor_reduce):
         rate = ai[:, :, None] + ai[:, None, :]
         need = dm - r[:, :, None] - r[:, None, :]
         pair_ok = (need > 0) & (rate > 0) & (dm < BIG)
-        # ceil(need / rate) with rate in {1, 2} — select + shift instead
-        # of division by a traced int (which does not lower under Mosaic)
+        # ceil(need / rate) with rate in {1, 2} — select + shift
         step_p = jnp.where(pair_ok,
                            jnp.where(rate == 2, (need + 1) >> 1, need), BIG)
         bneed = bdm - r
@@ -378,13 +330,13 @@ def _growth_core(dm, bdm, phim, bsm, valid, *, max_events, xor_reduce):
     bkey = jnp.where((r >= bdm) & valid, bdm, BIG)      # [N, D] int32
     mkey = jnp.where(eq, bkey[:, None, :] * D + iota_l, BIG * D)
     mmin = jnp.min(mkey, axis=2)                        # [N, D]
-    mslot = mmin - (mmin // D) * D                      # mod, Mosaic-safe
+    mslot = mmin - (mmin // D) * D                      # mod D
     m_onehot = iota_l == mslot[:, :, None]              # [N, D, D]
     bs_of_m = jnp.sum(jnp.where(m_onehot, bsm[:, None, :], 0), axis=2)
 
     terms = (jnp.where(valid, phim, 0)
              ^ jnp.where(odd_b, bs_of_m, 0))
-    obs = xor_reduce(terms)
+    obs = jax.lax.reduce(terms, jnp.int32(0), jax.lax.bitwise_xor, (1,))
 
     # residual activity (incl. stuck components) = incomplete decode
     unfin_i = jnp.where(valid & ((cnt & 1) == 1) & (btouch_i == 0), 1, 0)
@@ -392,105 +344,29 @@ def _growth_core(dm, bdm, phim, bsm, valid, *, max_events, xor_reduce):
     return obs, unfinished
 
 
-def make_growth_kernel(D: int, max_events: int, *, tile: int = 8,
-                       interpret: bool = False):
-    """The whole delta-stepped ball-growth loop in ONE pallas call:
-    per-tile [T,D,D] geometry and [T,D] radii/labels stay VMEM-resident
-    across every growth round and component sweep, eliminating the HBM
-    round-trips that dominate the XLA path (each while_loop iteration
-    there re-streams ~6 [B,D,D] tensors through HBM).
-
-    Takes (dm [B,D,D], bdm/phim/bsm/valid [B,D] — all int32) and returns
-    (obs [B] int32, unfinished [B] bool). Bit-identical to the XLA path
-    by construction: both trace `_growth_core`. D must be a power of two
-    (the XOR roll-tree); B a multiple of ``tile`` (callers pad with
-    valid=0 rows, which decode to obs=0/finished)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if D & (D - 1):
-        raise ValueError("growth kernel needs power-of-two D")
-
-    def kernel(dm_ref, bdm_ref, phim_ref, bsm_ref, valid_ref,
-               obs_ref, unf_ref):
-        obs, unf = _growth_core(
-            dm_ref[:], bdm_ref[:], phim_ref[:], bsm_ref[:],
-            valid_ref[:] != 0, max_events=max_events,
-            xor_reduce=_xor_reduce_roll)
-        obs_ref[:] = obs[:, None]
-        unf_ref[:] = unf.astype(jnp.int32)[:, None]
-
-    vec = pl.BlockSpec((tile, D), lambda i: (i, 0),
-                       memory_space=pltpu.VMEM)
-
-    def call(dm, bdm, phim, bsm, valid_i32):
-        B = dm.shape[0]
-        if B % tile:
-            raise ValueError(f"batch {B} not a multiple of tile {tile}")
-        obs, unf = pl.pallas_call(
-            kernel,
-            grid=(B // tile,),
-            in_specs=[
-                pl.BlockSpec((tile, D, D), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM),
-                vec, vec, vec, vec,
-            ],
-            out_specs=[
-                pl.BlockSpec((tile, 1), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 1), lambda i: (i, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((B, 1), jnp.int32),
-                jax.ShapeDtypeStruct((B, 1), jnp.int32),
-            ],
-            interpret=interpret,
-        )(dm, bdm, phim, bsm, valid_i32)
-        return obs[:, 0], unf[:, 0] != 0
-
-    return call
-
-
 def make_sparse_obs_decoder(graph: MatchingGraph, *, d_max: int = 32,
-                            max_events: int | None = None,
-                            backend: str = "auto", tile: int = 8):
+                            max_events: int | None = None):
     """A pure, jit-composable ``decode(detectors) -> (obs, converged)``
     defect-granular decoder (same contract as
     `device_uf.make_obs_decoder`), or None when the graph does not admit
     the sparse path. Shots with more than ``d_max`` defects report
     converged=False — compose with `make_hybrid_obs_decoder` or a host
-    fallback.
-
-    ``backend``: 'auto' (= 'xla' — measured faster than the Mosaic
-    kernel at every profiled size, see module docstring) | 'xla' |
-    'pallas' | 'pallas-interpret' (CPU tests). The Mosaic path pads
-    ``d_max`` to a power of two; results are bit-identical across
-    backends (both trace `_growth_core`)."""
+    fallback."""
     tables = build_sparse_tables(graph)
     if tables is None:
         return None
     d_max = min(d_max, tables.num_nodes)  # compaction cap on tiny graphs
-    if backend == "auto":
-        backend = "xla"
-    if backend in ("pallas", "pallas-interpret"):
-        pow2 = max(8, 1 << (d_max - 1).bit_length())  # kernel needs pow2
-        if pow2 > tables.num_nodes:
-            backend = "xla"  # tiny graph: top_k caps D below the pow2
-        else:
-            d_max = pow2
     if max_events is None:
         max_events = d_max * (d_max + 1) // 2 + 4
     tables_dev = (jnp.asarray(tables.dist),
                   jnp.asarray(tables.phi.astype(np.int64)).astype(jnp.int32),
                   jnp.asarray(tables.bdist),
                   jnp.asarray(tables.bside.astype(np.int64)).astype(jnp.int32))
-    return partial(_sparse_decode, tables_dev, d_max, max_events,
-                   backend, tile)
+    return partial(_sparse_decode, tables_dev, d_max, max_events)
 
 
 def make_hybrid_obs_decoder(graph: MatchingGraph, *, d_max: int = 32,
-                            backend: str = "auto", **dense_kwargs):
+                            **dense_kwargs):
     """Sparse decode with a dense-kernel escape hatch: the defect-granular
     path always runs; iff some shot did not converge there (overflow /
     stuck component), the dense kernel runs too — under `lax.cond`, so
@@ -500,7 +376,7 @@ def make_hybrid_obs_decoder(graph: MatchingGraph, *, d_max: int = 32,
     from qcss_tpu.decode.device_uf import make_obs_decoder
 
     dense = make_obs_decoder(graph, **dense_kwargs)
-    sparse = make_sparse_obs_decoder(graph, d_max=d_max, backend=backend)
+    sparse = make_sparse_obs_decoder(graph, d_max=d_max)
     if sparse is None:
         return dense
 

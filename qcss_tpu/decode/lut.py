@@ -3,8 +3,8 @@
 The reference decodes by emitting, for every (syndrome, correction) table
 entry, a bit-serial ``string_match`` + ``conditional_xor`` straight-line
 block into the Quil program — O(2^r * n) instructions per decode
-(reference: css_code.py:676-682, quil_classical.py:81-111). The TPU-native
-form is one int8 matmul (syndrome extraction on the MXU), one weighted sum
+(reference: css_code.py:676-682, quil_classical.py:81-111). The device
+form is one mod-2 matmul (syndrome extraction), one weighted sum
 (syndrome bits -> table index) and one gather (correction lookup), batched
 over millions of samples.
 """

@@ -1,4 +1,4 @@
-"""Exact maximum-likelihood decoding by MXU-batched coset enumeration.
+"""Exact maximum-likelihood decoding by matmul-batched coset enumeration.
 
 Every practical decoder in this package approximates: LUT and MWPM pick
 a MINIMUM-WEIGHT representative, union-find approximates that, BP
@@ -17,15 +17,16 @@ outweigh the class holding the single lightest one, so ML is strictly
 better on degenerate codes, and the measured ML-vs-LUT/UF gap says how
 much room a better approximate decoder has.
 
-The TPU shape: for independent priors, log Pr[e] = const + e . llr
+The device shape: for independent priors, log Pr[e] = const + e . llr
 with llr_j = log(p_j / (1 - p_j)), and
 
     (eL xor g) . llr  =  eL . llr  +  g . llr  -  2 * (eL * llr) . g
 
 so ONE [B, n] @ [n, G] matmul per logical class hands every coset
 log-probability to the whole batch at once, followed by a logsumexp
-over the coset axis — exactly the large, static, batched matmul the
-MXU wants. The coset axis is chunked (2^16 per step) so r ~ 20
+over the coset axis — one large, static, batched matmul (float32 at
+``Precision.HIGHEST``: lower-precision products flip near-tie
+argmaxes against the f64 brute force). The coset axis is chunked (2^16 per step) so r ~ 20
 stabilizer generators stay in memory; per-qubit or per-shot priors
 ride the same matmul for free, so soft-input EXACT decoding comes out
 of the same kernel.
@@ -142,9 +143,10 @@ class MLDecoder:
         base = jnp.sum(eLf * llr, axis=1)
         cross_in = eLf * llr
         out = jnp.full(base.shape, -jnp.inf, jnp.float32)
+        hp = jax.lax.Precision.HIGHEST  # no TF32: near-tie argmaxes
         for ch in chunks:                             # static, few
-            tot = (base[:, None] + llr @ ch
-                   - 2.0 * (cross_in @ ch))
+            tot = (base[:, None] + jnp.matmul(llr, ch, precision=hp)
+                   - 2.0 * jnp.matmul(cross_in, ch, precision=hp))
             out = jnp.logaddexp(
                 out, jax.scipy.special.logsumexp(tot, axis=1))
         return out

@@ -26,7 +26,7 @@ sequential chain with a two-layer commit schedule:
 
 Total: at most 4 device calls (first/interior/last A shapes + seams)
 for ANY number of rounds — decode latency is O(1) in R instead of
-O(R), and the windows exploit exactly the resource a TPU has to spare:
+O(R), and the windows exploit exactly the resource an accelerator has to spare:
 batch parallelism. Commit-rule outputs ride the union-find kernel's
 label lanes as in `device_streaming`: lane 0 is the committed-region
 observable, and each core-boundary crossing carries ``1 << check`` on
@@ -202,8 +202,7 @@ class ParallelWindowDecoder:
             lanes.extend(self._carry_lanes(lchk))
         if kw["commit_hi"] < slices:
             lanes.extend(self._carry_lanes(rchk))
-        dg = build_device_graph(g, extra_lanes=tuple(lanes),
-                                spill_lanes=True)
+        dg = build_device_graph(g, extra_lanes=tuple(lanes))
         return jax.jit(partial(decode_labels, dg))
 
     def _last_fn(self, core_last: int):

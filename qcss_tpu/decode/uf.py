@@ -7,7 +7,7 @@ of arbitrary distance — including 3D spacetime graphs for multi-round
 memory experiments — with the Delfosse-Nickerson union-find algorithm
 (arXiv:1709.06218).
 
-Division of labor, TPU-first: error sampling and syndrome extraction run
+Division of labor, device-first: error sampling and syndrome extraction run
 batched on the device (`jax`), producing compact `[B, r]` syndrome bit
 arrays plus `[B]` logical-parity bits; the irregular, data-dependent
 grow-and-peel runs as a threaded native host kernel
@@ -441,7 +441,7 @@ def uf_phenomenological_error_rate(
     keys = jax.random.split(jax.random.key(seed), n_rounds)
     fails = 0
     # Double-buffer: dispatch the next device batch (async under jit)
-    # before the host decodes the current one, so TPU sampling and the
+    # before the host decodes the current one, so device sampling and the
     # threaded host decoder overlap.
     pending = _sample_phenomenological(
         keys[0], jnp.float32(p), jnp.float32(q), batch, rounds, h_j, lz_j)

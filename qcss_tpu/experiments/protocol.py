@@ -20,7 +20,7 @@ NOP-padded gate array covering every check (each check measured onto
 its own ancilla), ONE `measure_many` over the padded ancilla list, and
 ONE data-dependent conditional-X reset pass — three fixed-shape
 executables per round instead of ~three per CHECK. The per-int-index
-tableau forms would both be ~30x slower in dispatch and trip the
+tableau forms would both dispatch one executable per (op, qubit) and trip the
 XLA:CPU in-process executable-count segfault edge documented in
 tests/conftest.py on >=77-qubit grids.
 

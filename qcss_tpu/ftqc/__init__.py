@@ -4,7 +4,7 @@ execution engine.
 The reference's flagship entry point `rewrite_program` metaprograms a huge
 Quil program (FT preparation loops, per-gate Steane error correction,
 unrolled classical decode tables, 2t+1 majority-vote measurement) which an
-external QVM then interprets (reference: ftqc.py:42-120). The TPU-native
+external QVM then interprets (reference: ftqc.py:42-120). The device-native
 inversion: `rewrite_program` here produces an `EncodedProgram` whose
 execution *is* a traced, batched JAX computation — quantum state evolution
 on the in-process tableau simulator, classical decoding as array ops, FT

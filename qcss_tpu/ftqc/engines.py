@@ -18,8 +18,6 @@ Both expose the same method set; block indices may be traced.
 
 from __future__ import annotations
 
-import os
-
 import jax
 import jax.numpy as jnp
 
@@ -289,19 +287,6 @@ class PackedEngine:
         return tab
 
     def measure_block(self, tab, b, key):
-        # QCSS_FUSED_MEASURE=1 routes block measurement through the fused
-        # Pallas kernel (sim/pallas_measure.py): the tableau tile stays
-        # VMEM-resident across all n measured qubits and results are
-        # bit-identical to the scan (tests/test_pallas_measure.py).
-        # Measured on v5e at n=121: scan 3.2M meas*samples/s vs fused
-        # 2.5M at batch 4096 — XLA's elementwise fusion beats the
-        # hand-rolled kernel here, so the scan stays the default.
-        if jax.default_backend() == "tpu" and os.environ.get(
-            "QCSS_FUSED_MEASURE", "0"
-        ) == "1":
-            from qcss_tpu.sim.pallas_measure import measure_many_fused
-
-            return measure_many_fused(tab, self.block_qubits(b), key)
         return tp.measure_many(tab, self.block_qubits(b), key)
 
     # -- transversal word-ops: the packing payoff ---------------------------------

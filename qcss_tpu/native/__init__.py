@@ -4,9 +4,10 @@ The reference is pure Python (SURVEY.md §2: zero native components), so the
 only native-code obligation here is self-imposed: syndrome-table
 enumeration is exponential in code distance and dominates construction time
 for large codes, so it runs as a compiled depth-first XOR enumeration
-(`syndrome_table.cc`). The library is built on demand with g++ into a cache
-directory; every entry point has a pure-Python fallback
-(`qcss_tpu.ops.gf2`), so the package works without a toolchain.
+(`syndrome_table.cc`). The library is built on demand with g++, from the
+`.cc` files beside this module, into `_build/` next to them (git-ignored,
+so every checkout builds its own); every entry point has a pure-Python
+fallback (`qcss_tpu.ops.gf2`), so the package works without a toolchain.
 """
 
 from __future__ import annotations
@@ -14,7 +15,6 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
-import tempfile
 
 import numpy as np
 
@@ -25,48 +25,43 @@ _SRCS = [
     os.path.join(os.path.dirname(__file__), "osd_decoder.cc"),
 ]
 _LIB_NAME = "libqcss.so"
+BUILD_DIR = os.path.join(os.path.dirname(__file__), "_build")
 _lib = None
 _load_attempted = False
 
 
-def _build_dir() -> str:
-    d = os.environ.get("QCSS_NATIVE_CACHE")
-    if d:
-        return d
-    return os.path.join(tempfile.gettempdir(), "qcss_tpu_native")
-
-
 def _try_load() -> ctypes.CDLL | None:
-    """Load the native library, building it with g++ on first use."""
+    """Load the native library, building it with g++ on first use (or
+    when a source is newer than the built copy)."""
     global _lib, _load_attempted
     if _load_attempted:
         return _lib
     _load_attempted = True
 
-    candidates = [
-        os.path.join(os.path.dirname(__file__), _LIB_NAME),
-        os.path.join(_build_dir(), _LIB_NAME),
-    ]
+    out = os.path.join(BUILD_DIR, _LIB_NAME)
     src_mtime = max(os.path.getmtime(s) for s in _SRCS)
-    for path in candidates:
-        if os.path.exists(path) and os.path.getmtime(path) >= src_mtime:
-            try:
-                _lib = _bind(ctypes.CDLL(path))
-                return _lib
-            except (OSError, AttributeError):
-                pass
+    if os.path.exists(out) and os.path.getmtime(out) >= src_mtime:
+        try:
+            _lib = _bind(ctypes.CDLL(out))
+            return _lib
+        except (OSError, AttributeError):
+            pass
 
-    # Build into the cache dir.
-    out_dir = _build_dir()
-    os.makedirs(out_dir, exist_ok=True)
-    out = os.path.join(out_dir, _LIB_NAME)
+    # Build under a per-process name, then rename into place: concurrent
+    # test workers never load a half-written library.
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
     cmd = ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-           *_SRCS, "-o", out, "-lpthread"]
+           *_SRCS, "-o", tmp, "-lpthread"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, out)
         _lib = _bind(ctypes.CDLL(out))
     except (OSError, subprocess.SubprocessError):
         _lib = None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return _lib
 
 

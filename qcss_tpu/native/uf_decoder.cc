@@ -4,7 +4,7 @@
 // kernel decodes arbitrary-distance matching graphs — including 3D
 // spacetime graphs for multi-round memory experiments — at millions of
 // shots per second across host threads, while syndromes are produced on
-// the TPU.
+// the accelerator.
 //
 // Algorithm: Delfosse-Nickerson union-find ("Almost-linear time decoding
 // algorithm for topological codes", arXiv:1709.06218): grow clusters of

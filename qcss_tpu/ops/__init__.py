@@ -6,7 +6,7 @@ Two tiers:
   code-construction time. Results are bit-exact against the reference
   (reference: bin_matrix.py, css_code.py:809-850).
 * `qcss_tpu.ops.gf2_jax` — batched device kernels (XLA) for the hot path:
-  mod-2 matmul on the MXU, bit-packed popcount-parity matmul on the VPU,
+  mod-2 matmul, bit-packed popcount-parity matmul,
   batched RREF.
 """
 

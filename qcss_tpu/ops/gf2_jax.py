@@ -3,12 +3,15 @@
 The hot path of the framework: syndrome extraction and decoding across
 millions of Monte-Carlo samples. Two complementary representations:
 
-* **Dense int8 on the MXU** — a mod-2 matmul is an int8 x int8 -> int32
-  matmul followed by ``& 1``. For batch sizes in the 10^5-10^7 range this
-  keeps the systolic array busy and is exact (int32 accumulation).
-* **Bit-packed uint32 on the VPU** — rows packed 32 qubits/word;
-  ``syndrome = parity(popcount(H & e))`` becomes AND + XOR-fold, which is
-  the idiomatic TPU form of the reference's per-bit emitted classical code
+* **Dense matmul** — a mod-2 matmul is a 0/1 matmul followed by ``& 1``,
+  in float32 at ``Precision.HIGHEST`` (exact for contraction lengths
+  below 2^24; no TF32 rounding). Not int8: XLA's GPU int8 GEMM returned
+  wrong sums at tiny shapes (e.g. [1024, 7] x [7, 3], the Steane
+  syndrome) on an H100 with jax 0.9.0; and XLA's CPU backend has no
+  bfloat16 x bfloat16 -> float32 dot in every context.
+* **Bit-packed uint32** — rows packed 32 qubits/word;
+  ``syndrome = parity(popcount(H & e))`` becomes AND + XOR-fold, the
+  array form of the reference's per-bit emitted classical code
   (reference: quil_classical.py:60-79).
 
 Everything here is shape-static and jit/vmap/shard_map friendly.
@@ -28,18 +31,22 @@ WORD_BITS = 32
 # ---------------------------------------------------------------------------
 
 def mod2_matmul(a: jax.Array, b: jax.Array) -> jax.Array:
-    """``(a @ b) mod 2`` for 0/1 integer arrays, exact, MXU-friendly.
+    """``(a @ b) mod 2`` for 0/1 integer arrays, exact.
 
     Works for any leading batch dims on ``a``. Inputs may be any integer
-    dtype; accumulation is int32.
+    dtype holding 0/1; the product runs in float32 at HIGHEST precision
+    (exact for a contraction length below 2^24).
     """
+    if a.shape[-1] >= 1 << 24:
+        raise ValueError("contraction too long for exact f32 accumulation")
     out = jax.lax.dot_general(
-        a.astype(jnp.int8),
-        b.astype(jnp.int8),
+        a.astype(jnp.float32),
+        b.astype(jnp.float32),
         dimension_numbers=(((a.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
     )
-    return (out & 1).astype(jnp.uint8)
+    return (out.astype(jnp.int32) & 1).astype(jnp.uint8)
 
 
 def syndromes_dense(errors: jax.Array, parity_check: jax.Array) -> jax.Array:

@@ -2,8 +2,8 @@
 
 The reference's only batching mechanism is the QVM numshots loop inside a
 single external simulator process (reference: test/test_fidelity.py:67);
-its only IPC is pyquil->QVM RPC. The TPU-native replacement is
-`jax.sharding` + `shard_map` over an ICI mesh with XLA collectives — each
+its only IPC is pyquil->QVM RPC. The device-native replacement is
+`jax.sharding` + `shard_map` over a 1-D device mesh with XLA collectives — each
 chip samples, extracts and decodes its own shard of the Monte-Carlo batch
 and failure counts are combined with a single `psum`.
 """

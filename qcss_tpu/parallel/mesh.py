@@ -4,7 +4,7 @@ Design: the Monte-Carlo sample axis is embarrassingly parallel, so the mesh
 has a single ``data`` axis; each device derives an independent PRNG stream
 by folding in its mesh coordinate, runs the fused
 sample → syndrome-extract → decode → logical-check pipeline on its local
-shard, and the scalar failure counts ride one `psum` over ICI. Code arrays
+shard, and the scalar failure counts ride one `psum` over the interconnect. Code arrays
 (parity checks, LUTs, logical rows) are small and replicated.
 """
 
@@ -252,10 +252,6 @@ class ShardedFrameMemory:
         the round-4 flagship decoder at mesh scale ('hybrid' composes
         the dense kernel for the rare >d_max-defect shot and is the
         production choice at operating noise)."""
-        from qcss_tpu.decode.device_uf import make_obs_decoder
-        from qcss_tpu.decode.uf import spacetime_graph
-        from qcss_tpu.experiments.memory import _memory_fused_device
-
         mesh = self.mesh
         n_dev = mesh.devices.size
         if batch % n_dev:
@@ -266,56 +262,14 @@ class ShardedFrameMemory:
         ck = ("fused", local, rounds, graph_kind, decoder, d_max)
         fn = self._cache.get(ck)
         if fn is None:
-            logicals = self.code.z_operator_matrix()
-            if graph_kind == "dem":
-                from qcss_tpu.decode.dem import (
-                    circuit_level_graph,
-                    extraction_gate_list,
-                )
-
-                graph = circuit_level_graph(
-                    self.h2_raw,
-                    extraction_gate_list(self.code, self.h2_raw), rounds,
-                    p_gate2=self.noise.p_gate2, p_meas=self.noise.p_meas,
-                    p_reset=self.noise.p_reset, logicals=logicals,
-                    rate2=self.noise.pauli2)
-            else:
-                graph = spacetime_graph(self.h2_raw, logicals, rounds)
-            if decoder == "dense":
-                decode_fn = make_obs_decoder(graph)
-            elif decoder == "sparse":
-                from qcss_tpu.decode.device_sparse import (
-                    make_sparse_obs_decoder,
-                )
-
-                decode_fn = make_sparse_obs_decoder(graph, d_max=d_max)
-                if decode_fn is None:
-                    raise ValueError("graph refuses the sparse path")
-            elif decoder == "hybrid":
-                from qcss_tpu.decode.device_sparse import (
-                    make_hybrid_obs_decoder,
-                )
-
-                decode_fn = make_hybrid_obs_decoder(graph, d_max=d_max)
-            else:
-                raise ValueError(
-                    "decoder must be 'dense', 'sparse' or 'hybrid'")
-            code, noise = self.code, self.noise
-            n_anc = self.h2_raw.shape[0]
-            extract = self._extract
-            comp = self._extract_comp
-            log_row = jnp.asarray(logicals[0], jnp.int32)
-            raw_j = jnp.asarray(self.h2_raw, jnp.uint8)
+            shard = self.fused_shard_fn(local, rounds, graph_kind, decoder,
+                                        d_max)
 
             @partial(shard_map, mesh=mesh, in_specs=(P(),),
                      out_specs=(P(), P()), check_vma=False)
             def step(k):
-                my_key = jax.random.fold_in(k, jax.lax.axis_index(axis))
-                fails, conv = _memory_fused_device(
-                    my_key, local, rounds, code=code, noise=noise,
-                    extract_arrays=extract, n_anc=n_anc,
-                    decode_fn=decode_fn, log_row=log_row, raw_j=raw_j,
-                    engine="frames", extract_comp=comp)
+                fails, conv = shard(
+                    jax.random.fold_in(k, jax.lax.axis_index(axis)))
                 return (
                     jax.lax.psum(fails, axis),
                     jax.lax.psum(1 - conv.astype(jnp.int32), axis),
@@ -332,6 +286,66 @@ class ShardedFrameMemory:
             "samples": batch,
             "decoder": f"device-{graph_kind}",
         }
+
+    def fused_shard_fn(self, local: int, rounds: int,
+                       graph_kind: str = "dem", decoder: str = "dense",
+                       d_max: int = 48):
+        """One device's part of `fused_error_rate`: ``shard(key) ->
+        (failure count, all-converged)`` over ``local`` shots sampled from
+        ``key`` (the caller folds in the mesh coordinate)."""
+        from qcss_tpu.decode.device_uf import make_obs_decoder
+        from qcss_tpu.decode.uf import spacetime_graph
+        from qcss_tpu.experiments.memory import _memory_fused_device
+
+        logicals = self.code.z_operator_matrix()
+        if graph_kind == "dem":
+            from qcss_tpu.decode.dem import (
+                circuit_level_graph,
+                extraction_gate_list,
+            )
+
+            graph = circuit_level_graph(
+                self.h2_raw,
+                extraction_gate_list(self.code, self.h2_raw), rounds,
+                p_gate2=self.noise.p_gate2, p_meas=self.noise.p_meas,
+                p_reset=self.noise.p_reset, logicals=logicals,
+                rate2=self.noise.pauli2)
+        else:
+            graph = spacetime_graph(self.h2_raw, logicals, rounds)
+        if decoder == "dense":
+            decode_fn = make_obs_decoder(graph)
+        elif decoder == "sparse":
+            from qcss_tpu.decode.device_sparse import (
+                make_sparse_obs_decoder,
+            )
+
+            decode_fn = make_sparse_obs_decoder(graph, d_max=d_max)
+            if decode_fn is None:
+                raise ValueError("graph refuses the sparse path")
+        elif decoder == "hybrid":
+            from qcss_tpu.decode.device_sparse import (
+                make_hybrid_obs_decoder,
+            )
+
+            decode_fn = make_hybrid_obs_decoder(graph, d_max=d_max)
+        else:
+            raise ValueError(
+                "decoder must be 'dense', 'sparse' or 'hybrid'")
+        code, noise = self.code, self.noise
+        n_anc = self.h2_raw.shape[0]
+        extract = self._extract
+        comp = self._extract_comp
+        log_row = jnp.asarray(logicals[0], jnp.int32)
+        raw_j = jnp.asarray(self.h2_raw, jnp.uint8)
+
+        def shard(key):
+            return _memory_fused_device(
+                key, local, rounds, code=code, noise=noise,
+                extract_arrays=extract, n_anc=n_anc,
+                decode_fn=decode_fn, log_row=log_row, raw_j=raw_j,
+                engine="frames", extract_comp=comp)
+
+        return shard
 
 
 _BP_MEMORY_CACHE: dict = {}
@@ -861,7 +875,7 @@ def sharded_mld_memory(code, mesh: Mesh, *, p: float, batch: int,
     """Mesh-parallel EXACT maximum-likelihood memory (the eleventh
     validated multi-chip pipeline): every device samples its shard of
     iid X errors, computes syndromes, scores every degenerate coset of
-    every logical class with the MXU coset matmuls
+    every logical class with the coset matmuls
     (`decode.mld.MLDecoder.device_decode_fn`) and picks the ML class —
     all inside the `shard_map`; one `psum` of word-failure counts is
     the only collective. The optimal decoder, at mesh scale."""

@@ -10,12 +10,11 @@ the SAME Clifford circuit and differ only in which Pauli faults struck.
 This module propagates only the per-sample Pauli fault frame (the
 deviation from the noiseless reference run) through the circuit — the
 architecture Stim introduced for CPU sampling (Gidney, "Stim: a fast
-stabilizer circuit simulator", arXiv:2103.02202 §4.2), rebuilt TPU-first:
+stabilizer circuit simulator", arXiv:2103.02202 §4.2), rebuilt device-first:
 frames are `[B, nq]` bit arrays, gates are XOR/permute column ops, noise
 is fused batched injection, and the whole per-round loop jits into a few
 elementwise kernels. Per-gate cost drops from O(rows·words) to O(1) bits
-per sample — measured >100x over the packed tableau engine on the
-memory experiment.
+per sample.
 
 Soundness domain (asserted by callers, see `experiments.memory`):
 
@@ -251,8 +250,7 @@ def run_arrays_noisy(f: Frames, ops, q0, q1,
 # its gate (noise strikes after each gate, exactly as the scan path
 # injects it). Sampling consumes PRNG keys gate-for-gate like
 # `run_arrays_noisy`, so compiled execution is BIT-IDENTICAL to the scan
-# — it just replaces ~G sequential scatter steps with two MXU matmuls
-# (measured 5-10x on the FT-prep hot path).
+# — it just replaces ~G sequential scatter steps with two matmuls.
 
 
 class CompiledFrameCircuit(NamedTuple):
@@ -319,9 +317,9 @@ def compile_circuit(ops, q0, q1, n: int) -> CompiledFrameCircuit:
 def maybe_compile(arrays, n: int,
                   min_gates: int = 100) -> CompiledFrameCircuit | None:
     """Compile an array-lowered circuit to matrix form when it is large
-    enough to win (measured cutover: the two-matmul form beats the
-    per-gate scan from ~100 gates up — 2x at surface d=11 — while small
-    circuits are faster scanned). Returns None below the cutover."""
+    enough to win (cutover from the first target machine: the
+    two-matmul form beat the per-gate scan from ~100 gates up; not yet
+    re-measured on the GPU). Returns None below the cutover."""
     ops = arrays[0]
     if int(jnp.asarray(ops).shape[0]) < min_gates:
         return None
@@ -399,7 +397,7 @@ def _sampled_fault_bits(comp: CompiledFrameCircuit,
 def _mod2_matmul(a, b):
     from qcss_tpu.ops.gf2_jax import mod2_matmul
 
-    return mod2_matmul(a, b)  # int8 MXU path, int32 accumulation
+    return mod2_matmul(a, b)
 
 
 def run_compiled_noisy(f: Frames, comp: CompiledFrameCircuit,

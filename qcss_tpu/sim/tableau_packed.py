@@ -10,7 +10,7 @@ Aaronson-Gottesman phase function is evaluated bit-sliced:
     g-sum = popcount(plus-mask) - popcount(minus-mask)   (mod 4)
 
 with the plus/minus masks built from the same case analysis as the
-unpacked `_g_exponent`, word-parallel. This is the TPU analogue of the
+unpacked `_g_exponent`, word-parallel. This is the device analogue of the
 bit-packed tableau layout used by CPU stabilizer simulators (the reference
 has no simulator of its own at all — it ships states to an external QVM,
 reference: test/test_ftqc.py:153-156).

@@ -171,27 +171,6 @@ def test_toric_refuses_sparse_path():
     assert hybrid is not None
 
 
-def test_growth_kernel_bit_identical_to_xla():
-    """The Mosaic growth kernel (interpret mode on CPU) and the XLA
-    fixpoint trace the same `_growth_core` — outputs must be
-    bit-identical on identical instances, including unconverged flags."""
-    d, rounds = 5, 5
-    code = rotated_surface(d)
-    h = np.asarray(code.raw_parity_check_c2, np.uint8)
-    g = spacetime_graph(h, code.z_operator_matrix(), rounds)
-    dets, _ = _sample_edge_errors(g, 0.02, 128, seed=9)
-    xla = make_sparse_obs_decoder(g, d_max=16, backend="xla")
-    krn = make_sparse_obs_decoder(g, d_max=16, backend="pallas-interpret")
-    o1, c1 = xla(jnp.asarray(dets))
-    o2, c2 = krn(jnp.asarray(dets))
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-    np.testing.assert_array_equal(np.asarray(o1), np.asarray(o2))
-    # and on a batch that is not a multiple of the kernel tile
-    o3, c3 = krn(jnp.asarray(dets[:50]))
-    np.testing.assert_array_equal(np.asarray(o3), np.asarray(o1)[:50])
-    np.testing.assert_array_equal(np.asarray(c3), np.asarray(c1)[:50])
-
-
 def test_zero_defect_shots():
     _, g = _surface_graph(3)
     dets = np.zeros((3, g.num_nodes), np.uint8)

@@ -154,11 +154,12 @@ def test_sharded_fused_pipeline():
 
 
 class TestPallasStencilKernels:
-    """Mosaic kernels (interpret mode on CPU) vs the XLA stencil kernel:
-    every variant must produce BIT-IDENTICAL labels — they implement the
-    same round/iteration schedule, only the execution substrate differs.
-    The parent-forest rake in the full kernel replaces the per-round
-    cluster-parity scatter and must reproduce its parities exactly."""
+    """The shift-stencil kernel against the other device kernels and the
+    host union-find: stencil and packed-gather kernels share the packed
+    adoption rule (min over comp << L | lanes), so their labels must be
+    BIT-IDENTICAL; the unpacked kernel breaks equal-comp ties by slot
+    instead, so it and the host decoder agree statistically; on weight
+    <= t errors all must decode exactly."""
 
     def _graph(self, d, rounds):
         code = surface_code(d)
@@ -168,33 +169,40 @@ class TestPallasStencilKernels:
 
     @pytest.mark.parametrize("d", [3, 5])
     def test_full_kernel_bit_identical(self, d):
-        from qcss_tpu.decode.device_uf import _decode_stencil, \
-            build_device_graph
-        from qcss_tpu.decode.device_uf_pallas import \
-            decode_stencil_pallas_full
+        from qcss_tpu.decode.device_uf import (_decode_packed,
+                                               _decode_stencil,
+                                               _decode_unpacked,
+                                               build_device_graph)
 
         g = self._graph(d, d)
         dg = build_device_graph(g)
         assert dg.stencil is not None
         rng = np.random.default_rng(3)
         dets = (rng.random((128, g.num_nodes)) < 0.03).astype(np.uint8)
-        labs_x, _ = _decode_stencil(dg, dets)
-        labs_f, conv = decode_stencil_pallas_full(dg, dets,
-                                                  interpret=True)
-        for lx, lf in zip(labs_x, labs_f):
-            np.testing.assert_array_equal(np.asarray(lx),
-                                          np.asarray(lf))
-        assert bool(np.all(np.asarray(conv)))
+        labs_x, conv_x = _decode_stencil(dg, dets)
+        labs_p, _ = _decode_packed(dg, dets)
+        labs_u, conv_u = _decode_unpacked(dg, dets)
+        np.testing.assert_array_equal(np.asarray(labs_x[0]),
+                                      np.asarray(labs_p[0]))
+        assert bool(np.all(np.asarray(conv_x)))
+        assert bool(np.all(np.asarray(conv_u)))
+        obs_x = np.asarray(labs_x[0]) & 1
+        _, obs_h = UFDecoder(g).decode_batch(dets, want_corrections=False)
+        # random detector patterns (not error-generated) carry heavy
+        # shots on which different valid matchings disagree
+        assert np.mean(obs_x == (np.asarray(labs_u[0]) & 1)) > 0.85
+        assert np.mean(obs_x == (np.asarray(obs_h) & 1)) > 0.85
 
     def test_full_kernel_dem_graph(self):
         """Weighted circuit-level DEM graph (7 offsets): delta-stepped
-        growth + rake still bit-identical."""
+        growth is bit-identical across the stencil and packed-gather
+        layouts, and agrees with the unpacked kernel."""
         from qcss_tpu.decode.dem import (circuit_level_graph,
                                          extraction_gate_list)
-        from qcss_tpu.decode.device_uf import _decode_stencil, \
-            build_device_graph
-        from qcss_tpu.decode.device_uf_pallas import \
-            decode_stencil_pallas_full
+        from qcss_tpu.decode.device_uf import (_decode_packed,
+                                               _decode_stencil,
+                                               _decode_unpacked,
+                                               build_device_graph)
 
         code = surface_code(3)
         raw = code.raw_parity_check_c2
@@ -207,18 +215,20 @@ class TestPallasStencilKernels:
         rng = np.random.default_rng(5)
         dets = (rng.random((128, g.num_nodes)) < 0.02).astype(np.uint8)
         labs_x, _ = _decode_stencil(dg, dets)
-        labs_f, _ = decode_stencil_pallas_full(dg, dets, interpret=True)
+        labs_p, _ = _decode_packed(dg, dets)
+        labs_u, _ = _decode_unpacked(dg, dets)
         np.testing.assert_array_equal(np.asarray(labs_x[0]),
-                                      np.asarray(labs_f[0]))
+                                      np.asarray(labs_p[0]))
+        assert np.mean((np.asarray(labs_x[0]) & 1)
+                       == (np.asarray(labs_u[0]) & 1)) > 0.95
 
     def test_weight_le_t_exactness(self):
-        """All weight <= t errors decode exactly through the full
-        kernel (code-capacity d=5)."""
+        """All weight <= t errors decode exactly through the stencil
+        kernel and the host decoder (code-capacity d=5)."""
         from itertools import combinations
 
-        from qcss_tpu.decode.device_uf import build_device_graph
-        from qcss_tpu.decode.device_uf_pallas import \
-            decode_stencil_pallas_full
+        from qcss_tpu.decode.device_uf import (_decode_stencil,
+                                               build_device_graph)
 
         d = 5
         code = surface_code(d)
@@ -226,8 +236,7 @@ class TestPallasStencilKernels:
         lz = np.asarray(code.z_operator_matrix(), np.uint8)
         g = _surface_graph(d)
         dg = build_device_graph(g)
-        if dg.stencil is None:
-            pytest.skip("code-capacity graph not stencil-eligible")
+        assert dg.stencil is not None
         n = h.shape[1]
         t = (d - 1) // 2
         errs = []
@@ -239,19 +248,18 @@ class TestPallasStencilKernels:
         errs = np.stack(errs)
         syn = (errs @ h.T) & 1
         par = ((errs @ lz.T) & 1)[:, 0]
-        labs, conv = decode_stencil_pallas_full(dg, syn, interpret=True)
+        labs, conv = _decode_stencil(dg, syn)
         np.testing.assert_array_equal(np.asarray(labs[0]) & 1, par)
         assert bool(np.all(np.asarray(conv)))
+        _, obs_h = UFDecoder(g).decode_batch(syn, want_corrections=False)
+        np.testing.assert_array_equal(np.asarray(obs_h) & 1, par)
 
     def test_spilled_chunk_lane_bit_identical(self):
-        """Lane spilling (`spill_lanes=True`): a lane decoded from the
-        packed word and ITS DUPLICATE decoded via the chunk down-spread
-        must agree bit-for-bit in the same decode — the chunk spread
-        reconstructs exactly the forest-path XORs the packed word
-        carries."""
-        from qcss_tpu.decode.device_uf import build_device_graph
-        from qcss_tpu.decode.device_uf_pallas import \
-            decode_stencil_pallas_full
+        """Lanes too wide to pack beside the cluster id (a streaming
+        window with two carry lanes) decode through the unpacked kernel:
+        a lane and its duplicate must agree bit-for-bit in one decode."""
+        from qcss_tpu.decode.device_uf import build_device_graph, \
+            decode_labels
         from qcss_tpu.decode.streaming import _window_graph
 
         code = surface_code(5)
@@ -261,13 +269,55 @@ class TestPallasStencilKernels:
         kind, sl = meta[:, 0], meta[:, 1]
         carry = np.where((kind == 1) & (sl == 3),
                          np.int64(1) << meta[:, 2], 0)
-        dg = build_device_graph(g, extra_lanes=(carry, carry),
-                                spill_lanes=True)
-        assert dg.packed_lane_ids == (0, 1)
-        assert dg.stencil.chunks[0].lane_ids == (2,)
+        dg = build_device_graph(g, extra_lanes=(carry, carry))
+        assert dg.pack_shift is None and dg.stencil is None
         rng = np.random.default_rng(9)
         dets = (rng.random((128, g.num_nodes)) < 0.02).astype(np.uint8)
-        labs, conv = decode_stencil_pallas_full(dg, dets, interpret=True)
+        labs, conv = decode_labels(dg, dets)
         np.testing.assert_array_equal(np.asarray(labs[1]),
                                       np.asarray(labs[2]))
         assert bool(np.all(np.asarray(conv)))
+
+
+class TestDecodeLabelsDispatch:
+    """`decode_labels` picks its kernel from the graph alone."""
+
+    @staticmethod
+    def _spy(monkeypatch):
+        from qcss_tpu.decode import device_uf as du
+
+        called = []
+        for name in ("_decode_stencil", "_decode_packed",
+                     "_decode_unpacked"):
+            real = getattr(du, name)
+
+            def spy(*a, _real=real, _name=name, **k):
+                called.append(_name)
+                return _real(*a, **k)
+            monkeypatch.setattr(du, name, spy)
+        return du, called
+
+    def test_wide_lanes_take_unpacked_kernel(self, monkeypatch):
+        """log2(V) + lane bits > 30: the unpacked kernel decodes every
+        lane (a 29-bit extra lane overflows the packed word)."""
+        du, called = self._spy(monkeypatch)
+        g = _surface_graph(3)
+        wide = np.int64(1) << (np.arange(g.num_edges) % 9 + 20)
+        dg = du.build_device_graph(g, extra_lanes=(wide,))
+        assert dg.pack_shift is None
+        dets = np.zeros((4, g.num_nodes), np.uint8)
+        dets[1, 0] = 1
+        labs, conv = du.decode_labels(dg, dets)
+        assert called == ["_decode_unpacked"]
+        assert len(labs) == 2 and bool(np.all(np.asarray(conv)))
+
+    @pytest.mark.parametrize("stencil,kernel", [
+        (None, "_decode_stencil"), (False, "_decode_packed")])
+    def test_packable_graph_kernels(self, monkeypatch, stencil, kernel):
+        du, called = self._spy(monkeypatch)
+        g = _surface_graph(3)
+        dg = du.build_device_graph(g, stencil=stencil)
+        dets = np.zeros((4, g.num_nodes), np.uint8)
+        dets[2, 1] = 1
+        du.decode_labels(dg, dets)
+        assert called == [kernel]
